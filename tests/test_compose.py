@@ -260,17 +260,10 @@ def test_chrome_layers_are_ink_cropped(app_fixture):
                                   r.image_atlas_device())
     assert out is not None
     assert C._GROUP_CACHE, "no chrome groups cached"
-    # Entries are (h, w, 4) f16 + pixel offsets on the XLA path, or
-    # (Ty, Tx, 4, TH, TW) i16 planar tile-rects + TILE offsets under
-    # the Mosaic kernel (WGIT_COMPOSE_KERNEL=interpret CI leg) — check
-    # cropping in the entry's own units either way.
+    # Entries are (h, w, 4) f16 images + pixel offsets.
     fractions = []
+    full_h, full_w = scene.height, scene.width
     for img, oy, ox in C._GROUP_CACHE.values():
-        if img.ndim == 5:   # kernel mode: tile units
-            full_h = -(-scene.height // C.TILE_H)
-            full_w = -(-scene.width // C.TILE_W)
-        else:               # image mode: pixels
-            full_h, full_w = scene.height, scene.width
         h, w = int(img.shape[0]), int(img.shape[1])
         assert 0 <= oy and 0 <= ox
         assert oy + h <= full_h and ox + w <= full_w, (img.shape, oy, ox)
@@ -304,35 +297,10 @@ def test_dyn_subgrid_covers_only_thumb_columns(app_fixture):
         "dyn meta churned across a scroll: compose jit recompiles per frame"
 
 
-def test_mosaic_kernel_blend_matches_xla_blend(app_fixture, monkeypatch):
-    """The Mosaic compose kernel (render/pallas_compose.py, exercised in
-    interpret mode here; compiled on the TPU tier) must reproduce the
-    XLA blend chain within 1 u8 — same plan, same z order, i16 cached
-    layers at better-than-f16 precision."""
-    app, tab, r = app_fixture
-    monkeypatch.delenv("WGIT_COMPOSE_KERNEL", raising=False)
-    C.clear_caches()
-    scene = _scene(app, tab, r, 33.0)
-    xla = C.render_frame_composed(scene, r.font_tex_device(),
-                                  r.image_atlas_device())
-    assert xla is not None
-    monkeypatch.setenv("WGIT_COMPOSE_KERNEL", "interpret")
-    C.clear_caches()
-    scene = _scene(app, tab, r, 33.0)
-    kern = C.render_frame_composed(scene, r.font_tex_device(),
-                                   r.image_atlas_device())
-    assert kern is not None
-    diff = np.abs(np.asarray(xla).astype(np.int16)
-                  - np.asarray(kern).astype(np.int16))
-    assert diff.max() <= 1, f"kernel vs XLA blend: max u8 diff {diff.max()}"
-
-
-def test_kernel_blend_windowless_scene(monkeypatch):
+def test_kernel_blend_windowless_scene():
     """A scene with NO scroll windows (welcome view shape) through the
-    interpret-mode Mosaic kernel: empty slab tuple, empty starts vector
-    (the kernel substitutes a dummy scalar-prefetch array), chrome +
-    volatile ops only — must match the XLA blend within 1 u8."""
-    from whisper_git_tpu.render.renderer import get_renderer
+    compose path: empty slab tuple, empty starts vector, chrome +
+    volatile ops only — must match the packed path within 1 u8."""
     from whisper_git_tpu.ui import column, rect, text
 
     r = get_renderer()
@@ -343,38 +311,27 @@ def test_kernel_blend_windowless_scene(monkeypatch):
         rect(width=12, height=12, radius=6,
              fill=(0.9, 0.6, 0.2, 0.9), volatile=True),
         width="fill", height="fill", fill=DARK.background, gap=8)
-
-    def render():
-        C.clear_caches()
-        root = r.layout(ui, (256, 128))
-        scene = r.compile(root, (256, 128), DARK.background)
-        out = C.render_frame_composed(scene, r.font_tex_device(),
-                                      r.image_atlas_device())
-        assert out is not None
-        return np.asarray(out)
-
-    monkeypatch.setenv("WGIT_COMPOSE_KERNEL", "0")
-    xla = render()
-    monkeypatch.setenv("WGIT_COMPOSE_KERNEL", "interpret")
-    kern = render()
-    diff = np.abs(xla.astype(np.int16) - kern.astype(np.int16))
+    C.clear_caches()
+    root = r.layout(ui, (256, 128))
+    scene = r.compile(root, (256, 128), DARK.background)
+    assert not scene.windows
+    got = _render_composed(scene, r)
+    assert got is not None
+    want = _render_packed(scene, r)
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
     assert diff.max() <= 1, diff.max()
 
 
-def test_kernel_inline_volatile_off_column_zero(monkeypatch):
-    """A volatile SHAPE whose tile-column range starts at c0 > 0 (the
-    right-edge scrollbar-thumb case) through the inline 'dyni' path:
-    the shape/clip tables are x-translated to the tail's sub-grid at
-    pack time (compose.py _shift_parts by -c0*TILE_W), so the kernel
-    must evaluate them against sub-grid-local pixel x. Regression for
-    the round-4 advisor finding: global px placed/dropped any inline
-    tail with c0 >= 1 (max u8 diff 193 on a column-2 dot)."""
-    from whisper_git_tpu.render.renderer import get_renderer
+def test_kernel_inline_volatile_off_column_zero():
+    """Volatile SHAPES whose tile-column range starts at c0 > 0 (the
+    right-edge scrollbar-thumb case): the tail's tables are x-translated
+    to its sub-grid at pack time (compose.py _shift_parts by -c0*TILE_W)
+    and its layer is blended back at x0 = c0*TILE_W — each dot must land
+    at its true position (packed path within 1 u8)."""
     from whisper_git_tpu.ui import rect, row, spacer, stack
 
     r = get_renderer()
     width, height = 512, 128   # 4 tile columns
-    dots = []
     # One volatile dot per tile column >= 1 (x = 160, 288, 416), so the
     # tails' sub-grids start at c0 = 1, 2, 3.
     ui = stack(
@@ -386,28 +343,19 @@ def test_kernel_inline_volatile_off_column_zero(monkeypatch):
                spacer(116))],
             width="fill", height=60),
         width="fill", height="fill")
-
-    def render():
-        C.clear_caches()
-        root = r.layout(ui, (width, height))
-        scene = r.compile(root, (width, height), DARK.background)
-        # The fixture must actually exercise c0 > 0 sub-grids.
-        prepared = C.prepare_compose_dispatch(scene, r.font_tex_device(),
-                                              r.image_atlas_device())
-        assert prepared is not None
-        dyn_meta = prepared[1]["meta"][1]
-        cols = [(m[2], m[3]) for m in dyn_meta if m[3] > m[2]]
-        assert any(c0 >= 1 for c0, _ in cols), \
-            f"fixture regression: no volatile tail at column >= 1 ({cols})"
-        out = C.render_frame_composed(scene, r.font_tex_device(),
-                                      r.image_atlas_device())
-        assert out is not None
-        return np.asarray(out)
-
-    monkeypatch.setenv("WGIT_COMPOSE_KERNEL", "0")
-    xla = render()
-    monkeypatch.setenv("WGIT_COMPOSE_KERNEL", "interpret")
-    kern = render()
-    diff = np.abs(xla.astype(np.int16) - kern.astype(np.int16))
+    C.clear_caches()
+    root = r.layout(ui, (width, height))
+    scene = r.compile(root, (width, height), DARK.background)
+    prepared = C.prepare_compose_dispatch(scene, r.font_tex_device(),
+                                          r.image_atlas_device())
+    assert prepared is not None
+    dyn_meta = prepared[1]["meta"][1]
+    cols = [(m[2], m[3]) for m in dyn_meta if m[3] > m[2]]
+    assert any(c0 >= 1 for c0, _ in cols), \
+        f"fixture regression: no volatile tail at column >= 1 ({cols})"
+    got = _render_composed(scene, r)
+    assert got is not None
+    want = _render_packed(scene, r)
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
     assert diff.max() <= 1, \
-        f"inline volatile at tile column >= 1: max u8 diff {diff.max()}"
+        f"volatile at tile column >= 1: max u8 diff {diff.max()}"

@@ -1,9 +1,11 @@
-"""The fused Pallas tile kernel must visually match the XLA scan path.
+"""The Pallas raster kernel (render/pallas_raster.py, the GPU path) must
+match the XLA scan reference.
 
-The Pallas path is TPU-only in production (`rasterizer._use_pallas`); here
-it runs in interpreter mode on CPU so the kernel logic — per-tile
-occupancy loops, VMEM atlas sampling, planar compositing — is exercised
-by the suite without TPU hardware.
+Production runs the kernel compiled through Triton on the GPU
+(`rasterizer._use_pallas`); here it runs in interpreter mode on the CPU, so
+the kernel logic — occupancy-bounded loops, sub-tile origins, atlas cell
+slicing, planar output — is exercised without the card
+(tests/test_gpu_hw.py compares the compiled kernel on the card).
 """
 
 from __future__ import annotations
@@ -21,9 +23,9 @@ def small_scene():
 
 
 def _render_both(renderer, scene):
-    import jax
     import jax.numpy as jnp
 
+    from whisper_git_tpu.render import frame as F
     from whisper_git_tpu.render import pallas_raster as PR
     from whisper_git_tpu.render import rasterizer as R
 
@@ -38,20 +40,13 @@ def _render_both(renderer, scene):
 
     tiles = R._render_tiles_impl(layer_data, font, atlas, bg, ty, tx,
                                  layer_sig)
-    img_x = np.asarray(tiles.reshape(ty, tx, R.TILE_H, R.TILE_W, 4)
-                       .transpose(0, 2, 1, 3, 4)
-                       .reshape(ty * R.TILE_H, tx * R.TILE_W, 4))
-    img_x = np.clip(img_x[:scene.height, :scene.width] * 255.0 + 0.5,
-                    0, 255).astype(np.uint8)
-
-    font_cells, font_cols = PR.cellify(font.astype(jnp.bfloat16))
-    image_cells, img_cols = PR.cellify(atlas.astype(jnp.bfloat16),
-                                       channels=4)
-    tiles_p = PR.render_tiles_pallas(
-        layer_data, font_cells, font_cols, image_cells, img_cols, bg,
-        ty, tx, layer_sig, interpret=True)
-    img_p = np.asarray(PR.assemble_planar(tiles_p, ty, tx,
-                                          scene.height, scene.width))
+    img_x = np.asarray(F.assemble_planar(tiles.transpose(0, 3, 1, 2), ty,
+                                         tx, scene.height, scene.width))
+    tiles_p = PR.render_tiles_blocks(R._layer_blocks(layer_data, layer_sig),
+                                     font, atlas, bg, ty, tx,
+                                     interpret=True)
+    img_p = np.asarray(F.assemble_planar(tiles_p, ty, tx, scene.height,
+                                         scene.width))
     return img_x, img_p
 
 
@@ -60,16 +55,16 @@ def test_pallas_matches_xla(small_scene):
     img_x, img_p = _render_both(renderer, scene)
     assert img_x.shape == img_p.shape == (128, 256, 4)
     diff = np.abs(img_x.astype(int) - img_p.astype(int))
-    # bf16 sampling order differences allow ±few units; anything larger
-    # would be a geometry/compositing bug.
-    assert diff.max() <= 8
-    assert (diff > 2).mean() < 0.01
+    # The glyph pass's bf16 products round in another order than the XLA
+    # scan's; anything above 1 u8 would be a geometry/compositing bug.
+    assert diff.max() <= 1, diff.max()
 
 
 def test_pallas_empty_scene():
     """No commands at all → background-only frame, no division by zero."""
     import jax.numpy as jnp
 
+    from whisper_git_tpu.render import frame as F
     from whisper_git_tpu.render import pallas_raster as PR
     from whisper_git_tpu.render import rasterizer as R
     from whisper_git_tpu.render.scene import Scene
@@ -81,12 +76,11 @@ def test_pallas_empty_scene():
     wins = tuple(jnp.asarray(b) for _, _, b in win_list)
     layer_data, layer_sig = R.unpack_layers(jnp.asarray(fused), wins, meta,
                                             ty * tx)
-    font = jnp.zeros((2, 64, 64), jnp.bfloat16)
-    atlas = jnp.zeros((2, 4, 64, 64), jnp.bfloat16)
-    tiles = PR.render_tiles_pallas(layer_data, font, 2, atlas, 2,
-                                   (0.1, 0.2, 0.3), ty, tx, layer_sig,
-                                   interpret=True)
-    img = np.asarray(PR.assemble_planar(tiles, ty, tx, 64, 128))
+    tiles = PR.render_tiles_blocks(R._layer_blocks(layer_data, layer_sig),
+                                   jnp.zeros((64, 64), jnp.uint8),
+                                   jnp.zeros((64, 64, 4), jnp.uint8),
+                                   (0.1, 0.2, 0.3), ty, tx, interpret=True)
+    img = np.asarray(F.assemble_planar(tiles, ty, tx, 64, 128))
     assert img.shape == (64, 128, 4)
     assert abs(int(img[0, 0, 0]) - int(0.1 * 255 + 0.5)) <= 1
     assert abs(int(img[0, 0, 2]) - int(0.3 * 255 + 0.5)) <= 1

@@ -23,12 +23,12 @@ from whisper_git_tpu.tools.goldens import (
 
 
 def _load(name: str) -> np.ndarray:
-    from PIL import Image
+    from whisper_git_tpu.render.renderer import load_png
 
     p = os.path.join(golden_dir(), f"{name}.png")
     assert os.path.exists(p), \
         f"missing golden {p}; run python -m whisper_git_tpu.tools.goldens"
-    return np.asarray(Image.open(p))
+    return load_png(p)
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))

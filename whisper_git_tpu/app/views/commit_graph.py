@@ -418,7 +418,7 @@ def history_view(tab, show_avatars: bool = True,
         # Content-quantize the thumb geometry (1 px steps): volatile
         # elements with CONTINUOUS per-frame values defeat the dyn-pack/
         # blob caches — one numpy re-bin + device upload every frame
-        # (measured; docs/performance.md cache rules). Sub-pixel thumb
+        # (measured). Sub-pixel thumb
         # motion is invisible at a 6 px thumb.
         frac_pos = round(frac_pos * track_h) / track_h
         thumb = rect(width=6, height=round(max(30.0, frac_view * track_h)),

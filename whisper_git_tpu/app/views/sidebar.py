@@ -243,7 +243,7 @@ def _sidebar_impl(tab) -> El:
         frac_pos = min(1.0 - frac_view,
                        tab.sidebar_scroll / max(total_h, 1.0))
         # Content-quantize (1 px): continuous volatile geometry defeats
-        # the per-frame dyn-pack/blob caches (docs/performance.md).
+        # the per-frame dyn-pack/blob caches (see commit_graph.py).
         thumb_y = round(frac_pos * track_h)
         thumb_h = round(max(24.0, frac_view * track_h))
         overlay = row(

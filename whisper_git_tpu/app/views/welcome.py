@@ -14,7 +14,7 @@ def welcome_view(recent_repos: list[dict]) -> El:
     rows: list[El] = [
         spacer(40),
         text("Whisper Git", font_size=26, bold=True, color=T.text_bright),
-        text("A TPU-accelerated Git client", font_size=T.font_size,
+        text("A GPU-accelerated Git client", font_size=T.font_size,
              color=T.text_muted),
         spacer(16),
         row(

@@ -33,7 +33,7 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     """reference: main.rs:29."""
     p = argparse.ArgumentParser(
         prog="whisper-git-tpu",
-        description="TPU-accelerated Git client (whisper-git rebuild)")
+        description="GPU-accelerated Git client (whisper-git rebuild)")
     p.add_argument("paths", nargs="*", help="repositories to open as tabs")
     p.add_argument("--screenshot", metavar="OUT.png",
                    help="render one frame headlessly and exit")
@@ -194,15 +194,6 @@ def main(argv: list[str] | None = None) -> int:
         paths = [args.repo] + paths
 
     if args.screenshot:
-        # Fire the one-time device-link warmup before any git work so it
-        # overlaps repo refresh + avatar prefetch + atlas build too (the
-        # Renderer would start it anyway, just later). The WGIT_DEVICE
-        # override MUST apply first — the warmup's dispatch pins the
-        # platform.
-        from ..render.renderer import _apply_device_override, start_link_warmup
-
-        _apply_device_override()
-        start_link_warmup()
         app = WhisperApp.from_paths(paths, config=Config())
         for tab in app.tabs:
             tab.refresh_sync()  # sync full refresh — no event loop

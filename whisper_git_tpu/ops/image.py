@@ -1,9 +1,9 @@
-"""Image resize as separable matmuls (JAX/MXU).
+"""Image resize as separable matmuls (JAX).
 
 The reference resizes avatars with Lanczos3 on the CPU (reference:
 src/avatar.rs:191-198, image crate). The accelerator-native formulation
 builds the two 1-D Lanczos sampling matrices on the host and applies them
-as matmuls — the MXU does the filtering, and a whole batch of avatars
+as matmuls — the matrix units do the filtering, and a whole batch of avatars
 resizes in one dispatch.
 """
 
@@ -44,11 +44,15 @@ def _matrices(h_in: int, w_in: int, h_out: int, w_out: int
 def _resize(imgs: jnp.ndarray, rows: jnp.ndarray, cols: jnp.ndarray,
             h_out: int, w_out: int) -> jnp.ndarray:
     x = imgs.astype(jnp.float32)
+    # HIGHEST: on the GPU an f32 product defaults to TF32 (10-bit
+    # mantissa, ~1e-3 relative per operand); an avatar resized here must
+    # match the CPU render, and a once-per-avatar resize costs little.
+    hi = jax.lax.Precision.HIGHEST
     # rows: (h_out, h_in) @ x: (B, h_in, w_in, C) along axis 1.
     x = jnp.einsum("oh,bhwc->bowc", rows, x,
-                   preferred_element_type=jnp.float32)
+                   preferred_element_type=jnp.float32, precision=hi)
     x = jnp.einsum("ow,bhwc->bhoc", cols, x,
-                   preferred_element_type=jnp.float32)
+                   preferred_element_type=jnp.float32, precision=hi)
     return x
 
 

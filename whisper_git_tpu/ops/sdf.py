@@ -11,7 +11,7 @@ phases vectorized:
             (O(n), no sequential Python, compiles to a handful of ops);
   phase 2 — exact column mixing as a min-plus reduction:
             D²[i,j] = min_i' ( (i-i')² + dx[i',j]² ),
-            a (H,H,W) broadcast-min that the VPU eats whole.
+            a (H,H,W) broadcast-min that XLA fuses whole.
 
 This is exact (not an approximation like chamfer/JFA) and compiles in
 milliseconds where a 48-stage jump-flood roll chain took XLA a minute.

@@ -28,7 +28,7 @@ Two consumers:
 
 Numerics: the per-tile bodies are the single-chip kernels, so the paths
 cannot drift structurally; EVERY sharded render is held to ±4/255 vs
-single-chip (bf16 MXU sampler re-association under shard_map and per
+single-chip (bf16 sampler re-association under shard_map and per
 shard shape — typically ≤1 u8 in practice; tests/test_parallel.py
 asserts the bound with the device caches cleared so the sharded
 kernels provably run).

@@ -5,10 +5,14 @@ docs/render_engine.md — fontdue rasterization at 2× oversample + custom
 EDT → R8 atlas, glyph metrics map, regular + bold instances). Here:
 
   1. PIL/FreeType rasterizes ASCII 32-126 (+ common extras) from the
-     bundled DejaVu Sans at ATLAS_FONT_PX with 2× oversampling,
+     bundled DejaVu Sans (render/fonts/) at ATLAS_FONT_PX with 2×
+     oversampling,
   2. ops.sdf computes the exact EDT for every glyph cell in ONE batched
      device dispatch,
-  3. the encoded u8 atlas + metrics are cached to disk keyed by font/size.
+  3. the encoded u8 atlas + metrics are committed next to the fonts
+     (render/fonts/atlas-{regular,bold}.npz) and loaded with numpy alone —
+     the render path needs neither PIL nor a font library.
+     `python -m whisper_git_tpu.tools.atlas_gen` regenerates them.
 
 The rasterizer samples the atlas bilinearly and maps SDF→coverage with a
 smoothstep whose width tracks the on-screen scale (the fwidth analog).
@@ -16,7 +20,6 @@ smoothstep whose width tracks the on-screen scale (the fwidth analog).
 
 from __future__ import annotations
 
-import hashlib
 import os
 from dataclasses import dataclass
 
@@ -32,8 +35,7 @@ _CHARS = list(dict.fromkeys(
     [chr(c) for c in range(32, 127)]              # ASCII
     + [chr(c) for c in range(0xA1, 0x100)]        # Latin-1 supplement
     + [chr(c) for c in range(0x100, 0x180)]       # Latin Extended-A
-    # Greek + Cyrillic: DejaVu covers them and commit messages use them;
-    # the VMEM budget allows it (font cells ≈ 7 MB bf16 of ~16 MB/core).
+    # Greek + Cyrillic: DejaVu covers them and commit messages use them.
     + [chr(c) for c in range(0x386, 0x3CF) if chr(c).isprintable()]
     + [chr(c) for c in range(0x400, 0x460)]
     + list("…·→✓—–•✕⚙⚠▸▾▴◂↑↓↗⟳›‹▏●○■□†‡€™")       # UI symbols
@@ -41,11 +43,17 @@ _CHARS = list(dict.fromkeys(
 ))
 
 
+FONT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fonts")
+
+
 def _font_path(bold: bool) -> str:
-    import matplotlib
-    fdir = os.path.join(os.path.dirname(matplotlib.__file__),
-                        "mpl-data", "fonts", "ttf")
-    return os.path.join(fdir, "DejaVuSans-Bold.ttf" if bold else "DejaVuSans.ttf")
+    return os.path.join(FONT_DIR,
+                        "DejaVuSans-Bold.ttf" if bold else "DejaVuSans.ttf")
+
+
+def atlas_path(bold: bool) -> str:
+    return os.path.join(FONT_DIR,
+                        "atlas-bold.npz" if bold else "atlas-regular.npz")
 
 
 @dataclass
@@ -325,32 +333,36 @@ def glyph_cell_metrics(mw: int, mh: int, bx0: int, adv: float
             adv / OVERSAMPLE)
 
 
-def _cache_dir() -> str:
-    d = os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache"))
-    path = os.path.join(d, "whisper-git-tpu")
-    os.makedirs(path, exist_ok=True)
-    return path
+def _atlas_from_arrays(texture: np.ndarray, chars, meta: np.ndarray,
+                       ascent: float, descent: float,
+                       bold: bool) -> FontAtlas:
+    glyphs = {str(c): Glyph(*row) for c, row in zip(chars, meta)}
+    return FontAtlas(texture, glyphs, float(ascent), float(descent),
+                     is_bold=bold)
 
 
-def build_atlas(bold: bool = False, use_cache: bool = True) -> FontAtlas:
+def build_atlas(bold: bool = False) -> FontAtlas:
+    """Load the committed SDF atlas (numpy only). The committed file must
+    cover exactly `_CHARS`; after editing the glyph set, regenerate with
+    `python -m whisper_git_tpu.tools.atlas_gen`."""
+    path = atlas_path(bold)
+    with np.load(path) as z:
+        chars = [str(c) for c in z["chars"]]
+        if chars != _CHARS:
+            raise RuntimeError(
+                f"{path} covers a different glyph set than atlas._CHARS; "
+                "run python -m whisper_git_tpu.tools.atlas_gen")
+        return _atlas_from_arrays(z["texture"], chars, z["meta"],
+                                  z["ascent"], z["descent"], bold)
+
+
+def rasterize_atlas(bold: bool = False) -> FontAtlas:
+    """Build the atlas from the bundled font: PIL rasterization + one
+    batched exact-EDT dispatch. Only the regeneration tool and its test
+    call this; the render path loads the committed result."""
     from PIL import ImageFont
 
-    font_file = _font_path(bold)
-    key = hashlib.md5(
-        f"{font_file}:{ATLAS_FONT_PX}:{OVERSAMPLE}:{CELL}:{SPREAD}:"
-        f"{''.join(_CHARS)}:v4-baseline".encode()).hexdigest()[:16]
-    cache = os.path.join(_cache_dir(), f"atlas-{key}.npz")
-    if use_cache and os.path.exists(cache):
-        try:
-            z = np.load(cache, allow_pickle=True)
-            glyphs = {c: Glyph(*row) for c, row in zip(z["chars"], z["meta"])}
-            return FontAtlas(z["texture"], glyphs,
-                             float(z["ascent"]), float(z["descent"]),
-                             is_bold=bold)
-        except Exception:
-            pass
-
-    font = ImageFont.truetype(font_file, ATLAS_FONT_PX * OVERSAMPLE)
+    font = ImageFont.truetype(_font_path(bold), ATLAS_FONT_PX * OVERSAMPLE)
     ascent_o, descent_o = font.getmetrics()
     pad = int(SPREAD * OVERSAMPLE)
 
@@ -383,22 +395,20 @@ def build_atlas(bold: bool = False, use_cache: bool = True) -> FontAtlas:
         # the spread margin (the ink itself sits at bbox y0).
         glyphs[ch] = Glyph(u=u, v=v, w=w, h=h, bearing_x=bearing_x,
                            bearing_y=bearing_y, advance=advance)
-    atlas = FontAtlas(texture, glyphs,
-                      ascent=ascent_o / OVERSAMPLE,
-                      descent=descent_o / OVERSAMPLE,
-                      is_bold=bold)
-    if use_cache:
-        try:
-            np.savez_compressed(
-                cache, texture=texture,
-                chars=np.array(_CHARS, dtype=object),
-                meta=np.array([(g.u, g.v, g.w, g.h, g.bearing_x, g.bearing_y,
-                                g.advance) for g in
-                               (glyphs[c] for c in _CHARS)], np.float32),
-                ascent=atlas.ascent, descent=atlas.descent)
-        except Exception:
-            pass
-    return atlas
+    return FontAtlas(texture, glyphs, ascent=ascent_o / OVERSAMPLE,
+                     descent=descent_o / OVERSAMPLE, is_bold=bold)
+
+
+def atlas_arrays(atlas: FontAtlas) -> dict:
+    """The arrays `build_atlas` loads (the committed .npz's contents)."""
+    return {"texture": atlas.texture,
+            "chars": np.array(_CHARS, dtype="<U1"),
+            "meta": np.array([(g.u, g.v, g.w, g.h, g.bearing_x,
+                               g.bearing_y, g.advance)
+                              for g in (atlas.glyphs[c] for c in _CHARS)],
+                             np.float32),
+            "ascent": np.float32(atlas.ascent),
+            "descent": np.float32(atlas.descent)}
 
 
 class AtlasMeasurer:

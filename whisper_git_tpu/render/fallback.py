@@ -5,7 +5,8 @@ coverage (CJK included) from cosmic-text's system-font fallback chain
 (reference: aetna-vulkano text stack, docs/render_engine.md pre-port
 "cosmic-text shaping"; Cargo.lock pins cosmic-text). The resident SDF
 atlas (render/atlas.py) covers ASCII/Latin/Greek/Cyrillic + UI symbols —
-the VMEM-resident working set. Everything else lands here:
+the always-resident working set. Everything else lands here (PIL +
+fontTools; without them such glyphs render '?'):
 
   * The FIRST time an out-of-coverage codepoint is measured or emitted,
     the bank walks a discovered font chain (WGIT_FALLBACK_FONTS, then

@@ -1,9 +1,9 @@
 """Device-resident frame pipeline — steady-state frames ship ~1 KB.
 
 The packed path in `rasterizer.py` re-quantizes and re-bins the whole
-scene every frame (~2.6 ms host) and re-ships ~75 KB over the device
-link. This pipeline exploits what is actually true of an interactive
-GUI frame stream: between consecutive frames almost nothing changes.
+scene every frame (~2.6 ms host) and re-uploads ~75 KB to the device.
+This pipeline exploits what is actually true of an interactive GUI frame
+stream: between consecutive frames almost nothing changes.
 
   * **Chrome** (per-layer static command prefix — everything except
     scroll windows and `El.volatile` commands) is content-addressed: a
@@ -29,10 +29,10 @@ GUI frame stream: between consecutive frames almost nothing changes.
     see El.volatile) and per-window (dx, dy, clip) uniforms are the only
     per-frame upload, fused into one small i16 array.
 
-Everything renders through the same per-tile compositing bodies as the
-single-shot path (pallas on TPU, an XLA scan fallback on CPU), so pixel
-output is bit-identical across all paths; tests/test_frame_cache.py and
-tests/test_window_residency.py assert it.
+Everything renders through the same per-tile compositing as the
+single-shot path (`render_blocks_planar`: the Pallas kernel on the GPU,
+the XLA scan elsewhere), so pixel output is bit-identical across paths;
+tests/test_frame_cache.py and tests/test_window_residency.py assert it.
 """
 
 from __future__ import annotations
@@ -573,8 +573,6 @@ def _render_frame(frame_blob, chrome_args, win_args, font_tex, image_atlas,
         layers_blocks.append(tuple(cls_lists))
 
     if mesh is not None:
-        from . import pallas_raster as PR
-
         tiles_planar = _render_tiles_blocks_sharded(
             tuple(layers_blocks), font_tex, image_atlas, background,
             tiles_y, tiles_x, use_pallas, mesh)
@@ -582,27 +580,10 @@ def _render_frame(frame_blob, chrome_args, win_args, font_tex, image_atlas,
         # assemble via [:height]): slicing the tile axis first would
         # break the clean n-way tile-row sharding the producer emits.
         _, ty_pad = _sharded_tile_rows(tiles_y, tiles_x, mesh)
-        return PR.assemble_planar(tiles_planar, ty_pad, tiles_x,
-                                  height, width)
-    if use_pallas:
-        from . import pallas_raster as PR
-
-        font_cells, font_cols = PR.cellify(font_tex.astype(jnp.bfloat16))
-        image_cells, img_cols = PR.cellify(
-            image_atlas.astype(jnp.bfloat16), channels=4)
-        tiles_f32 = PR.render_tiles_blocks(
-            tuple(layers_blocks), font_cells, font_cols, image_cells,
-            img_cols, background, tiles_y, tiles_x)
-        return PR.assemble_planar(tiles_f32, tiles_y, tiles_x, height,
-                                  width)
-    tiles = _render_tiles_blocks_xla(tuple(layers_blocks), font_tex,
-                                     image_atlas, background, tiles_y,
-                                     tiles_x)
-    img = tiles.reshape(tiles_y, tiles_x, TILE_H, TILE_W, 4)
-    img = img.transpose(0, 2, 1, 3, 4).reshape(tiles_y * TILE_H,
-                                               tiles_x * TILE_W, 4)
-    img = img[:height, :width]
-    return jnp.clip(img * 255.0 + 0.5, 0.0, 255.0).astype(jnp.uint8)
+        return assemble_planar(tiles_planar, ty_pad, tiles_x, height, width)
+    tiles = render_blocks_planar(tuple(layers_blocks), font_tex, image_atlas,
+                                 background, tiles_y, tiles_x, use_pallas)
+    return assemble_planar(tiles, tiles_y, tiles_x, height, width)
 
 
 def _dequant_parts_traced(blob_i16, caps: tuple):
@@ -623,8 +604,42 @@ def _dequant_parts_traced(blob_i16, caps: tuple):
 
 
 # ---------------------------------------------------------------------------
-# XLA fallback (CPU/tests): same blocks, lax.scan with bound masking.
+# Tile rendering: the Pallas kernel (render/pallas_raster.py) on the GPU,
+# the XLA reference — same blocks, lax.scan with bound masking — elsewhere.
 # ---------------------------------------------------------------------------
+
+def render_blocks_planar(layers_blocks, font_tex, image_atlas, background,
+                         tiles_y: int, tiles_x: int, use_pallas: bool,
+                         n_tiles: int | None = None, tile0=None):
+    """Blocks → planar f32 tiles (T, 4, TILE_H, TILE_W) (traced)."""
+    if use_pallas:
+        from . import pallas_raster as PR
+
+        return PR.render_tiles_blocks(layers_blocks, font_tex, image_atlas,
+                                      background, tiles_y, tiles_x,
+                                      n_tiles=n_tiles, tile0=tile0)
+    tiles = _render_tiles_blocks_xla(layers_blocks, font_tex, image_atlas,
+                                     background, tiles_y, tiles_x,
+                                     n_tiles=n_tiles,
+                                     tile0=0 if tile0 is None else tile0)
+    return tiles.transpose(0, 3, 1, 2)
+
+
+def assemble_f32(tiles_f32, tiles_y: int, tiles_x: int, height: int,
+                 width: int):
+    """(T, 4, TH, TW) f32 planar tiles → (H, W, 4) f32 (device-side)."""
+    img = tiles_f32.reshape(tiles_y, tiles_x, 4, TILE_H, TILE_W)
+    img = img.transpose(0, 3, 1, 4, 2).reshape(tiles_y * TILE_H,
+                                               tiles_x * TILE_W, 4)
+    return img[:height, :width]
+
+
+def assemble_planar(tiles_f32, tiles_y: int, tiles_x: int, height: int,
+                    width: int):
+    """(T, 4, TH, TW) f32 planar tiles → (H, W, 4) u8 presented frame."""
+    img = assemble_f32(tiles_f32, tiles_y, tiles_x, height, width)
+    return jnp.clip(img * 255.0 + 0.5, 0.0, 255.0).astype(jnp.uint8)
+
 
 def _render_tiles_blocks_xla(layers_blocks, font_tex, image_atlas,
                              background, tiles_y: int, tiles_x: int,
@@ -690,8 +705,8 @@ def _render_tiles_blocks_xla(layers_blocks, font_tex, image_atlas,
 # Mesh-sharded tile rendering: the production frame paths under a device
 # mesh. The tile axis of every block's bins/bounds shards across ALL mesh
 # devices (contiguous slices); command tables and atlases replicate; each
-# device runs the same per-tile kernel (pallas on TPU, the XLA scan
-# fallback on CPU) on its local slice with global pixel origins. The
+# device runs the same per-tile rendering (render_blocks_planar) on its
+# local slice with global pixel origins. The
 # assembled frame is the all-gather of tile outputs, which XLA inserts
 # from the out_spec — the multi-chip analog of compositing to one
 # swapchain image.
@@ -713,7 +728,7 @@ def _sharded_tile_rows(tiles_y: int, tiles_x: int, mesh) -> tuple:
     assembled image is cleanly row-sharded [n,1,1] instead of the
     unrepresentable tile-split sharding that forced the partitioner into
     involuntary full rematerialization (replicate + repartition of every
-    cached layer image per compose — MULTICHIP_r03 tail)."""
+    cached layer image per compose)."""
     n = int(np.prod([mesh.shape[a] for a in mesh.axis_names]))
     ty_pad = -(-tiles_y // n) * n
     return ty_pad * tiles_x, ty_pad
@@ -756,20 +771,9 @@ def _render_tiles_blocks_sharded(layers_blocks, font_tex, image_atlas,
         shard_id = jnp.int32(0)
         for ax in axes:
             shard_id = shard_id * mesh.shape[ax] + jax.lax.axis_index(ax)
-        tile0 = shard_id * local_t
-        if use_pallas:
-            from . import pallas_raster as PR
-
-            font_cells, font_cols = PR.cellify(ftex.astype(jnp.bfloat16))
-            image_cells, img_cols = PR.cellify(
-                iatlas.astype(jnp.bfloat16), channels=4)
-            return PR.render_tiles_blocks(
-                lb, font_cells, font_cols, image_cells, img_cols,
-                background, tiles_y, tiles_x, n_tiles=local_t, tile0=tile0)
-        tiles = _render_tiles_blocks_xla(lb, ftex, iatlas, background,
-                                         tiles_y, tiles_x, n_tiles=local_t,
-                                         tile0=tile0)
-        return tiles.transpose(0, 3, 1, 2)  # planar, like the pallas path
+        return render_blocks_planar(lb, ftex, iatlas, background, tiles_y,
+                                    tiles_x, use_pallas, n_tiles=local_t,
+                                    tile0=shard_id * local_t)
 
     fn = jax.shard_map(body, mesh=mesh,
                        in_specs=(tuple(specs), P(), P()),

@@ -1,37 +1,37 @@
-"""Pallas TPU rasterizer — the fused per-tile compositing kernel.
+"""Rasterizer kernel for NVIDIA GPUs — Pallas on the Triton route.
 
-The XLA fallback (`rasterizer._render_tiles_impl`) pays for its `lax.scan`
-structure three ways: every tile scans the same padded K command slots
-(mean occupancy is ~5-20× lower than the cap), every slot re-gathers its
-atlas cell from HBM, and each pass round-trips the framebuffer. This
-kernel removes all three:
+The XLA reference (`frame._render_tiles_blocks_xla`) folds every tile over
+its padded bin row with `lax.scan`: on the GPU that becomes a device
+while-loop of K steps per pass in which every slot — padding included —
+slices its atlas cell and round-trips the framebuffer. This kernel does
+the same per-command math with the loop bounded by each tile's real
+occupancy:
 
-  * grid = tiles; ONE program composites a 64×128 tile through every
-    layer and pass with the framebuffer in VMEM scratch,
-  * per-tile command loops run to the tile's actual bin occupancy
-    (`fori_loop` with a traced bound — impossible in a jit `scan`),
-  * the SDF font atlas and image atlas live in VMEM for the whole grid
-    (constant index_map → fetched once), so glyph sampling is a
-    dynamic_slice of on-chip memory feeding two small bf16 MXU matmuls
-    (`W_y @ cell @ W_xᵀ` — the no-gather bilinear trick, see
-    docs/render-engine.md rule 1).
+  * grid = (tile, sub-tile row): one program composites a SUB_H × TILE_W
+    slice of one binning tile through every block of every layer, the
+    framebuffer held in registers as four channel planes;
+  * each block's loop runs `lo[t]..hi[t]` (the tile's own occupancy,
+    loaded by the program itself), reading the command index from the
+    bins table and the command's scalars straight from device memory;
+  * glyph cells are sliced from the atlas in device memory (both font
+    weights together are a few MB, which stays in L2) and resampled by
+    two bf16 `pl.dot` products with f32 accumulation (`W_y @ cell @
+    W_xᵀ` — the no-gather bilinear trick, docs/render-engine.md rule 1);
+    image quads use the same products in IEEE f32.
 
-Output is planar f32 tiles (T, 4, TH, TW) — channel-major keeps the last
-two dims lane-aligned; the XLA epilogue transposes and quantizes to the
-presented (H, W, 4) u8 image on device (Mosaic lacks an f32→u8 cast).
-
-Capability note (parity): this is the rebuild's analog of the
-reference's aetna-vulkano fragment pipeline (reference:
-docs/render_engine.md three-pass loop); same visual semantics as the XLA
-path, asserted by tests/test_pallas_raster.py in interpret mode.
+The output is four (T, TILE_H, TILE_W) f32 channel planes, stacked to the
+planar (T, 4, TILE_H, TILE_W) layout that `frame.assemble_f32` consumes.
+`interpret=True` runs the kernel on the CPU (tests/test_pallas_raster.py).
 """
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from . import rasterizer as R
 
@@ -40,498 +40,204 @@ TILE_W = R.TILE_W
 CELL = R.CELL
 SDF_SPREAD = R.SDF_SPREAD
 
+# One program's slice of a binning tile, and its warp count: the four
+# f32 channel planes of a SUB_H × TILE_W slice are what each program keeps
+# in registers (SUB_H · TILE_W · 4 / (32 · NUM_WARPS) = 64 per thread).
+# Provisional: on the H100 the best four of (SUB_H, NUM_WARPS) ∈
+# {16, 32, 64} × {2, 4, 8} time the packed 1280×800 frame within each
+# other's sample spread (PERF.md).
+SUB_H = 32
+NUM_WARPS = 8
 
-def _shape_step(shapes, sclips, i, px, py, clip_mask, composite):
-    """Composite one rounded-rect / capsule command onto the tile."""
-    # Scalar reads: dynamic-row vector loads need 8-sublane alignment
-    # Mosaic can't prove; scalars have no such rule.
-    c = [shapes[i, j] for j in range(16)]
-    clip = clip_mask(sclips[i, 0], sclips[i, 1], sclips[i, 2], sclips[i, 3])
-    is_seg = c[0] == 1.0
-    hx, hy = c[3] * 0.5, c[4] * 0.5
-    cx, cy = c[1] + hx, c[2] + hy
-    r = jnp.minimum(c[5], jnp.minimum(hx, hy))
-    qx = jnp.abs(px - cx) - (hx - r)
-    qy = jnp.abs(py - cy) - (hy - r)
-    d_rect = (jnp.sqrt(jnp.maximum(qx, 0.0) ** 2
-                       + jnp.maximum(qy, 0.0) ** 2)
-              + jnp.minimum(jnp.maximum(qx, qy), 0.0) - r)
-    ax, ay, bx, by = c[1], c[2], c[3], c[4]
-    abx, aby = bx - ax, by - ay
-    denom = jnp.maximum(abx * abx + aby * aby, 1e-6)
-    tt = jnp.clip(((px - ax) * abx + (py - ay) * aby) / denom, 0.0, 1.0)
-    d_seg = jnp.sqrt((px - (ax + tt * abx)) ** 2
-                     + (py - (ay + tt * aby)) ** 2) - c[5]
-    d = jnp.where(is_seg, d_seg, d_rect)
-    cov = jnp.clip(0.5 - d, 0.0, 1.0) * clip
-    composite(c[7], c[8], c[9], cov * c[10])
-    bw = c[6]
-    has_border = jnp.logical_and(jnp.logical_not(is_seg), bw > 0.0)
-    cov_b = (jnp.clip(0.5 - d, 0.0, 1.0)
-             * jnp.clip(d + bw + 0.5, 0.0, 1.0)
-             * clip * has_border.astype(jnp.float32))
-    composite(c[11], c[12], c[13], cov_b * c[14])
+_Z_ORDER = (0, 2, 1)   # shapes → images → glyphs (scene.py contract)
 
 
-def _glyph_step(glyphs, gcolors, gclips, font_ref, font_cols, i, px, py,
-                clip_mask, composite, sample_weights_y, sample_weights_xT):
-    """Composite one SDF glyph via the no-gather matmul resampling."""
-    x, y, w, h = glyphs[i, 0], glyphs[i, 1], glyphs[i, 2], glyphs[i, 3]
-    u, v, uw, uh = glyphs[i, 4], glyphs[i, 5], glyphs[i, 6], glyphs[i, 7]
-    clip = clip_mask(gclips[i, 0], gclips[i, 1], gclips[i, 2], gclips[i, 3])
-    ci = ((v.astype(jnp.int32) // CELL) * font_cols
-          + u.astype(jnp.int32) // CELL)
-    patch = font_ref[ci]
-    wy = sample_weights_y(y, h, uh).astype(jnp.bfloat16)
-    wxT = sample_weights_xT(x, w, uw).astype(jnp.bfloat16)
-    enc0 = jnp.dot(wy, patch, preferred_element_type=jnp.float32)
-    enc = jnp.dot(enc0.astype(jnp.bfloat16), wxT,
-                  preferred_element_type=jnp.float32)
-    sdf_atlas = (128.0 - enc) * (SDF_SPREAD / 128.0)
-    screen_scale = w / jnp.maximum(uw, 1e-6)
-    d = sdf_atlas * screen_scale
-    cov = jnp.clip(0.5 - d / 0.7, 0.0, 1.0) * clip
-    composite(gcolors[i, 0], gcolors[i, 1], gcolors[i, 2],
-              cov * gcolors[i, 3])
+def _sample_weights(s, j, atlas_extent):
+    """Bilinear weights of sample positions `s` against cell texel
+    centres `j` (broadcast against each other), zero outside the quad."""
+    w = jnp.clip(1.0 - jnp.abs(s - j), 0.0, 1.0)
+    inside = ((s > -1.0) & (s < atlas_extent)).astype(jnp.float32)
+    return w * inside
 
 
-def _image_step(images, iclips, img_ref, img_cols, i, px, py, clip_mask,
-                composite, sample_weights_y, sample_weights_xT):
-    """Composite one image quad (RGBA, per-channel matmul resampling)."""
-    x, y, w, h = images[i, 0], images[i, 1], images[i, 2], images[i, 3]
-    u, v, uw, uh = images[i, 4], images[i, 5], images[i, 6], images[i, 7]
-    clip = clip_mask(iclips[i, 0], iclips[i, 1], iclips[i, 2], iclips[i, 3])
-    ci = ((v.astype(jnp.int32) // CELL) * img_cols
-          + u.astype(jnp.int32) // CELL)
-    wy = sample_weights_y(y, h, uh).astype(jnp.bfloat16)
-    wxT = sample_weights_xT(x, w, uw).astype(jnp.bfloat16)
-    chans = []
-    for ch in range(4):
-        patch = img_ref[ci, ch]
-        v0 = jnp.dot(wy, patch, preferred_element_type=jnp.float32)
-        val = jnp.dot(v0.astype(jnp.bfloat16), wxT,
-                      preferred_element_type=jnp.float32)
-        chans.append(val * (1.0 / 255.0))
-    a = chans[3] * clip
-    composite(chans[0], chans[1], chans[2], a)
-
-
-def _kernel_body(refs, *, tiles_x: int, layer_sig: tuple, background: tuple,
-                 part_index: dict, font_cols: int = 1, img_cols: int = 1):
-    """Composite one tile. `refs` is the flat ref list; `part_index` maps
-    (layer, part-name) -> position in refs."""
-    font_ref = refs[part_index["font"]] if "font" in part_index else None
-    img_ref = refs[part_index["image_atlas"]] \
-        if "image_atlas" in part_index else None
-    out_ref = refs[part_index["out"]]
-    fb = refs[part_index["fb"]]
-
+def _kernel(*refs, plan, n_in, tiles_x, sub_h, background, font_pos,
+            img_pos, tile0_pos):
+    ins, outs = refs[:n_in], refs[n_in:]
     t = pl.program_id(0)
-    ox = (t % tiles_x) * TILE_W
-    oy = (t // tiles_x) * TILE_H
-    # Mosaic iota is integer-only; cast after.
-    py = (jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 0
-                                   ).astype(jnp.float32)
-          + oy.astype(jnp.float32) + 0.5)
-    px = (jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 1
-                                   ).astype(jnp.float32)
-          + ox.astype(jnp.float32) + 0.5)
-    py1 = py[:, 0:1]                      # (TH, 1)
-    px1 = px[0:1, :]                      # (1, TW)
+    s = pl.program_id(1)
+    gt = t if tile0_pos is None else t + ins[tile0_pos][0]
+    ox = ((gt % tiles_x) * TILE_W).astype(jnp.float32)
+    oy = ((gt // tiles_x) * TILE_H + s * sub_h).astype(jnp.float32)
+    px = jnp.arange(TILE_W, dtype=jnp.int32).astype(jnp.float32)[None, :] \
+        + (ox + 0.5)                                        # (1, TW)
+    py = jnp.arange(sub_h, dtype=jnp.int32).astype(jnp.float32)[:, None] \
+        + (oy + 0.5)                                        # (SH, 1)
+    cell_row = jnp.arange(CELL, dtype=jnp.int32).astype(
+        jnp.float32)[None, :]                               # (1, CELL)
+    cell_col = jnp.arange(CELL, dtype=jnp.int32).astype(
+        jnp.float32)[:, None]                               # (CELL, 1)
+    shape = (sub_h, TILE_W)
 
-    fb[0] = jnp.full((TILE_H, TILE_W), background[0], jnp.float32)
-    fb[1] = jnp.full((TILE_H, TILE_W), background[1], jnp.float32)
-    fb[2] = jnp.full((TILE_H, TILE_W), background[2], jnp.float32)
-    fb[3] = jnp.ones((TILE_H, TILE_W), jnp.float32)
+    if background is None:  # transparent canvas (compose layers)
+        fb = tuple(jnp.zeros(shape, jnp.float32) for _ in range(4))
+    else:
+        fb = tuple(jnp.full(shape, v, jnp.float32)
+                   for v in (background[0], background[1], background[2],
+                             1.0))
 
-    def clip_mask(c0, c1, c2, c3):
-        return ((px >= c0) & (py >= c1) & (px <= c2) & (py <= c3)
+    def clip_mask(clips, i):
+        return ((px >= clips[i, 0]) & (py >= clips[i, 1])
+                & (px <= clips[i, 2]) & (py <= clips[i, 3])
                 ).astype(jnp.float32)
 
-    def composite(r, g, b, cov_a):
-        """Premultiplied over: (r,g,b) scalars or arrays, cov_a (TH,TW)."""
-        inv = 1.0 - cov_a
-        fb[0] = r * cov_a + fb[0] * inv
-        fb[1] = g * cov_a + fb[1] * inv
-        fb[2] = b * cov_a + fb[2] * inv
-        fb[3] = cov_a + fb[3] * inv
+    def over(fb, r, g, b, a):
+        inv = 1.0 - a
+        return (r * a + fb[0] * inv, g * a + fb[1] * inv,
+                b * a + fb[2] * inv, a + fb[3] * inv)
 
-    def sample_weights_y(origin, extent, atlas_extent):
-        """(TH, CELL) bilinear weight matrix (see rasterizer)."""
-        s = (py1 - origin) / jnp.maximum(extent, 1e-6) * atlas_extent - 0.5
-        j = jax.lax.broadcasted_iota(jnp.int32, (1, CELL), 1
-                                     ).astype(jnp.float32)
-        w = jnp.clip(1.0 - jnp.abs(s - j), 0.0, 1.0)
-        inside = ((s > -1.0) & (s < atlas_extent)).astype(jnp.float32)
-        return w * inside
+    def weights(x, y, w, h, uw, uh):
+        wy = _sample_weights((py - y) / jnp.maximum(h, 1e-6) * uh - 0.5,
+                             cell_row, uh)                  # (SH, CELL)
+        wxT = _sample_weights((px - x) / jnp.maximum(w, 1e-6) * uw - 0.5,
+                              cell_col, uw)                 # (CELL, TW)
+        return wy, wxT
 
-    def sample_weights_xT(origin, extent, atlas_extent):
-        """(CELL, TW) — the transposed x weights, built directly."""
-        s = (px1 - origin) / jnp.maximum(extent, 1e-6) * atlas_extent - 0.5
-        j = jax.lax.broadcasted_iota(jnp.int32, (CELL, 1), 0
-                                     ).astype(jnp.float32)
-        w = jnp.clip(1.0 - jnp.abs(s - j), 0.0, 1.0)
-        inside = ((s > -1.0) & (s < atlas_extent)).astype(jnp.float32)
-        return w * inside
+    def shape_step(fb, tables, i):
+        shapes, sclips = tables
+        c = [shapes[i, j] for j in range(16)]
+        clip = clip_mask(sclips, i)
+        is_seg = c[0] == 1.0
+        hx, hy = c[3] * 0.5, c[4] * 0.5
+        cx, cy = c[1] + hx, c[2] + hy
+        r = jnp.minimum(c[5], jnp.minimum(hx, hy))
+        qx = jnp.abs(px - cx) - (hx - r)
+        qy = jnp.abs(py - cy) - (hy - r)
+        d_rect = (jnp.sqrt(jnp.maximum(qx, 0.0) ** 2
+                           + jnp.maximum(qy, 0.0) ** 2)
+                  + jnp.minimum(jnp.maximum(qx, qy), 0.0) - r)
+        ax, ay, bx, by = c[1], c[2], c[3], c[4]
+        abx, aby = bx - ax, by - ay
+        denom = jnp.maximum(abx * abx + aby * aby, 1e-6)
+        tt = jnp.clip(((px - ax) * abx + (py - ay) * aby) / denom, 0.0, 1.0)
+        d_seg = jnp.sqrt((px - (ax + tt * abx)) ** 2
+                         + (py - (ay + tt * aby)) ** 2) - c[5]
+        d = jnp.where(is_seg, d_seg, d_rect)
+        cov = jnp.clip(0.5 - d, 0.0, 1.0) * clip
+        fb = over(fb, c[7], c[8], c[9], cov * c[10])
+        has_border = jnp.logical_and(jnp.logical_not(is_seg), c[6] > 0.0)
+        cov_b = (jnp.clip(0.5 - d, 0.0, 1.0)
+                 * jnp.clip(d + c[6] + 0.5, 0.0, 1.0)
+                 * clip * has_border.astype(jnp.float32))
+        return over(fb, c[11], c[12], c[13], cov_b * c[14])
 
-    for li, (has_s, has_g, has_i) in enumerate(layer_sig):
-        if has_s:
-            shapes = refs[part_index[(li, "shapes")]]
-            sclips = refs[part_index[(li, "shape_clips")]]
-            sbins = refs[part_index[(li, "s_bins")]]
-            scount = refs[part_index[(li, "s_count")]][t]
+    def glyph_step(fb, tables, i):
+        glyphs, gcolors, gclips = tables
+        x, y, w, h = glyphs[i, 0], glyphs[i, 1], glyphs[i, 2], glyphs[i, 3]
+        u, v, uw, uh = glyphs[i, 4], glyphs[i, 5], glyphs[i, 6], glyphs[i, 7]
+        clip = clip_mask(gclips, i)
+        patch = ins[font_pos][pl.ds(v.astype(jnp.int32), CELL),
+                              pl.ds(u.astype(jnp.int32), CELL)]
+        wy, wxT = weights(x, y, w, h, uw, uh)
+        # bf16 weights (the SDF encoding spans 0..255 with a ±1-unit
+        # tolerance, ≪ the 0.7 px AA transition). The f32 intermediate
+        # enters the second product as hi + lo bf16 terms (~16 bits), as
+        # in the XLA pass (rasterizer._glyphs_pass).
+        enc0 = pl.dot(wy.astype(jnp.bfloat16),
+                      patch.astype(jnp.float32).astype(jnp.bfloat16))
+        hi = enc0.astype(jnp.bfloat16)
+        lo = (enc0 - hi.astype(jnp.float32)).astype(jnp.bfloat16)
+        wxT = wxT.astype(jnp.bfloat16)
+        enc = pl.dot(hi, wxT) + pl.dot(lo, wxT)
+        d = (128.0 - enc) * (SDF_SPREAD / 128.0) \
+            * (w / jnp.maximum(uw, 1e-6))
+        cov = jnp.clip(0.5 - d / 0.7, 0.0, 1.0) * clip
+        return over(fb, gcolors[i, 0], gcolors[i, 1], gcolors[i, 2],
+                    cov * gcolors[i, 3])
 
-            def shape_body(k, _, shapes=shapes, sclips=sclips, sbins=sbins):
-                _shape_step(shapes, sclips, sbins[t, k], px, py, clip_mask,
-                            composite)
-                return 0
+    def image_step(fb, tables, i):
+        images, iclips = tables
+        x, y, w, h = images[i, 0], images[i, 1], images[i, 2], images[i, 3]
+        u, v, uw, uh = images[i, 4], images[i, 5], images[i, 6], images[i, 7]
+        clip = clip_mask(iclips, i)
+        wy, wxT = weights(x, y, w, h, uw, uh)
+        chans = []
+        for ch in range(4):
+            patch = ins[img_pos][pl.ds(v.astype(jnp.int32), CELL),
+                                 pl.ds(u.astype(jnp.int32), CELL), ch]
+            val = pl.dot(pl.dot(wy, patch.astype(jnp.float32),
+                                allow_tf32=False), wxT, allow_tf32=False)
+            chans.append(val * (1.0 / 255.0))
+        return over(fb, chans[0], chans[1], chans[2], chans[3] * clip)
 
-            jax.lax.fori_loop(0, scount, shape_body, 0)
+    steps = (shape_step, glyph_step, image_step)
+    for layer in plan:
+        for ci in _Z_ORDER:
+            for tpos, bpos, lpos, hpos in layer[ci]:
+                tables = tuple(ins[p] for p in tpos)
+                bins = ins[bpos]
+                lo = 0 if lpos is None else ins[lpos][t]
+                hi = ins[hpos][t]
 
-        if has_i:
-            images = refs[part_index[(li, "images")]]
-            iclips = refs[part_index[(li, "image_clips")]]
-            ibins = refs[part_index[(li, "i_bins")]]
-            icount = refs[part_index[(li, "i_count")]][t]
+                def body(k, fb, tables=tables, bins=bins, step=steps[ci]):
+                    return step(fb, tables, bins[t, k])
 
-            def image_body(k, _, images=images, iclips=iclips, ibins=ibins):
-                _image_step(images, iclips, img_ref, img_cols, ibins[t, k],
-                            px, py, clip_mask, composite,
-                            sample_weights_y, sample_weights_xT)
-                return 0
+                fb = jax.lax.fori_loop(lo, hi, body, fb)
 
-            jax.lax.fori_loop(0, icount, image_body, 0)
-
-        if has_g:
-            glyphs = refs[part_index[(li, "glyphs")]]
-            gcolors = refs[part_index[(li, "glyph_colors")]]
-            gclips = refs[part_index[(li, "glyph_clips")]]
-            gbins = refs[part_index[(li, "g_bins")]]
-            gcount = refs[part_index[(li, "g_count")]][t]
-
-            def glyph_body(k, _, glyphs=glyphs, gcolors=gcolors,
-                           gclips=gclips, gbins=gbins):
-                _glyph_step(glyphs, gcolors, gclips, font_ref, font_cols,
-                            gbins[t, k], px, py, clip_mask, composite,
-                            sample_weights_y, sample_weights_xT)
-                return 0
-
-            jax.lax.fori_loop(0, gcount, glyph_body, 0)
-
-    # Mosaic has no f32→u8 cast; emit f32 tiles, quantize in the XLA
-    # epilogue (still on device).
-    out_ref[0] = jnp.stack([fb[0], fb[1], fb[2], fb[3]])  # (4, TH, TW)
-
-
-def cellify(tex, channels: int = 0):
-    """(H, W[, C]) texture → (n_cells[, C], CELL, CELL) cell table + cols.
-    3D tables let the kernel index a cell by its leading dim, which has no
-    Mosaic sublane-alignment proof obligation (a 2D dynamic_slice does)."""
-    if channels:
-        h, w, c = tex.shape
-        cells = tex.reshape(h // CELL, CELL, w // CELL, CELL, c)
-        cells = cells.transpose(0, 2, 4, 1, 3).reshape(-1, c, CELL, CELL)
-    else:
-        h, w = tex.shape
-        cells = tex.reshape(h // CELL, CELL, w // CELL, CELL)
-        cells = cells.transpose(0, 2, 1, 3).reshape(-1, CELL, CELL)
-    return cells, w // CELL
-
-
-def render_tiles_pallas(layer_data, font_cells, font_cols: int,
-                        image_cells, img_cols: int,
-                        background: tuple, tiles_y: int, tiles_x: int,
-                        layer_sig: tuple, interpret: bool = False):
-    """layer_data: as rasterizer (per layer: 7 command arrays + 3 bins).
-    font_cells: (n, CELL, CELL) bf16; image_cells: (m, 4, CELL, CELL) bf16
-    (see `cellify`; Mosaic has no u8→bf16 cast, so the jit prologue
-    converts once). Returns planar f32 tiles (T, 4, TILE_H, TILE_W)."""
-    T = tiles_y * tiles_x
-    # Bins + per-tile occupancy counts ride as scalar-prefetch args: whole
-    # i32 index tables in SMEM, available before the body runs — the
-    # Pallas idiom for data-dependent work lists (block-sparse style).
-    scalar_inputs = []
-    tensor_inputs = []
-    tensor_specs = []
-    part_index: dict = {}
-
-    def add_scalar(name, arr):
-        part_index[name] = len(scalar_inputs)
-        scalar_inputs.append(arr)
-
-    def add_full(name, arr):
-        part_index[name] = ("t", len(tensor_inputs))
-        tensor_inputs.append(arr)
-        tensor_specs.append(pl.BlockSpec(memory_space=pltpu.VMEM))
-
-    any_glyphs = any(sig[1] for sig in layer_sig)
-    any_images = any(sig[2] for sig in layer_sig)
-    if any_glyphs:
-        add_full("font", font_cells)
-    if any_images:
-        add_full("image_atlas", image_cells)
-
-    for li, (has_s, has_g, has_i) in enumerate(layer_sig):
-        (shapes, shape_clips, glyphs, glyph_colors, glyph_clips,
-         images, image_clips, s_bins, g_bins, i_bins) = layer_data[li]
-        if has_s:
-            add_full((li, "shapes"), shapes)
-            add_full((li, "shape_clips"), shape_clips)
-            add_scalar((li, "s_bins"), s_bins)
-            add_scalar((li, "s_count"),
-                       jnp.sum(s_bins >= 0, axis=1, dtype=jnp.int32))
-        if has_i:
-            add_full((li, "images"), images)
-            add_full((li, "image_clips"), image_clips)
-            add_scalar((li, "i_bins"), i_bins)
-            add_scalar((li, "i_count"),
-                       jnp.sum(i_bins >= 0, axis=1, dtype=jnp.int32))
-        if has_g:
-            add_full((li, "glyphs"), glyphs)
-            add_full((li, "glyph_colors"), glyph_colors)
-            add_full((li, "glyph_clips"), glyph_clips)
-            add_scalar((li, "g_bins"), g_bins)
-            add_scalar((li, "g_count"),
-                       jnp.sum(g_bins >= 0, axis=1, dtype=jnp.int32))
-
-    n_scalar = len(scalar_inputs)
-    # Kernel arg order: scalar-prefetch refs, tensor refs, out, scratch.
-    resolved = {}
-    for name, pos in part_index.items():
-        if isinstance(pos, tuple) and pos and pos[0] == "t":
-            resolved[name] = n_scalar + pos[1]
-        else:
-            resolved[name] = pos
-    resolved["out"] = n_scalar + len(tensor_inputs)
-    resolved["fb"] = resolved["out"] + 1
-
-    def kernel(*refs):
-        _kernel_body(refs, tiles_x=tiles_x, layer_sig=layer_sig,
-                     background=background, part_index=resolved,
-                     font_cols=font_cols, img_cols=img_cols)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=n_scalar,
-        grid=(T,),
-        in_specs=tensor_specs,
-        out_specs=pl.BlockSpec((1, 4, TILE_H, TILE_W),
-                               lambda t, *_: (t, 0, 0, 0)),
-        scratch_shapes=[pltpu.VMEM((4, TILE_H, TILE_W), jnp.float32)],
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((T, 4, TILE_H, TILE_W), jnp.float32),
-        interpret=interpret,
-    )(*scalar_inputs, *tensor_inputs)
+    for out, plane in zip(outs, fb):
+        out[...] = plane
 
 
-# ---------------------------------------------------------------------------
-# Blocks kernel — the frame-cache path (render/frame.py): each (layer,
-# class) composites an ordered list of BLOCKS (chrome z-segments sharing
-# one bins table via per-tile [lo, hi) bounds, device-gathered window
-# pair bins, the volatile dynamic tail), each block reading its OWN
-# command tables. Same per-command step math as the single-shot kernel.
-# ---------------------------------------------------------------------------
-
-def render_tiles_blocks(layers_blocks, font_cells, font_cols: int,
-                        image_cells, img_cols: int, background: tuple,
-                        tiles_y: int, tiles_x: int,
-                        interpret: bool = False,
+def render_tiles_blocks(layers_blocks, font_tex, image_atlas, background,
+                        tiles_y: int, tiles_x: int, interpret: bool = False,
                         n_tiles: int | None = None, tile0=None):
     """layers_blocks: tuple per layer of 3 per-class block tuples
-    (shapes, glyphs, images order); block = (tables, bins (T,k),
-    lo (T,)|None, hi (T,)). Returns planar f32 tiles (T,4,TH,TW).
+    (shapes, glyphs, images order); block = (tables, bins (T, k),
+    lo (T,) | None, hi (T,)) with bins[t, lo[t]:hi[t]] the tile's command
+    indices in paint order. font_tex: (H, W) u8 SDF atlas; image_atlas:
+    (H, W, 4) u8. background None renders a transparent canvas. Returns
+    planar f32 tiles (T, 4, TILE_H, TILE_W).
 
-    Under `shard_map` (render/frame.py sharded path) each device runs
-    this kernel on its local contiguous tile slice: `n_tiles` is the
-    local slice length and `tile0` a traced (1,) i32 global offset —
-    pixel origins use the global tile id, bins stay locally indexed."""
+    Under `shard_map` each device renders its local contiguous tile
+    slice: `n_tiles` is the slice length and `tile0` a traced global
+    offset — pixel origins use the global tile id, bins stay local."""
     T = n_tiles if n_tiles is not None else tiles_y * tiles_x
-    scalar_inputs, tensor_inputs, tensor_specs = [], [], []
-    sc_pos: dict = {}
-    tn_pos: dict = {}
-    tile0_pos = None
-    if tile0 is not None:
-        tile0_pos = len(scalar_inputs)
-        scalar_inputs.append(tile0.astype(jnp.int32).reshape(1))
+    inputs: list = []
+    pos: dict = {}
 
-    def add_scalar(arr):
+    def add(arr):
         key = id(arr)
-        if key not in sc_pos:
-            sc_pos[key] = len(scalar_inputs)
-            scalar_inputs.append(arr)
-        return sc_pos[key]
+        if key not in pos:
+            pos[key] = len(inputs)
+            inputs.append(arr)
+        return pos[key]
 
-    def add_tensor(arr):
-        key = id(arr)
-        if key not in tn_pos:
-            tn_pos[key] = len(tensor_inputs)
-            tensor_inputs.append(arr)
-            tensor_specs.append(pl.BlockSpec(memory_space=pltpu.VMEM))
-        return tn_pos[key]
+    any_glyphs = any(layer[1] for layer in layers_blocks)
+    any_images = any(layer[2] for layer in layers_blocks)
+    font_pos = add(font_tex) if any_glyphs else None
+    img_pos = add(image_atlas) if any_images else None
+    tile0_pos = (None if tile0 is None
+                 else add(jnp.asarray(tile0, jnp.int32).reshape(1)))
+    plan = tuple(
+        tuple(tuple((tuple(add(tb) for tb in tables), add(bins),
+                     None if lo is None else add(lo), add(hi))
+                    for tables, bins, lo, hi in layer[ci])
+              for ci in range(3))
+        for layer in layers_blocks)
 
-    any_glyphs = any(cls_lists[1] for cls_lists in layers_blocks)
-    any_images = any(cls_lists[2] for cls_lists in layers_blocks)
-    font_pos = add_tensor(font_cells) if any_glyphs else None
-    img_pos = add_tensor(image_cells) if any_images else None
-
-    plan = []
-    for cls_lists in layers_blocks:
-        lplan = []
-        for ci in range(3):
-            bplan = []
-            for tables, bins, lo, hi in cls_lists[ci]:
-                bplan.append((tuple(add_tensor(tb) for tb in tables),
-                              add_scalar(bins),
-                              None if lo is None else add_scalar(lo),
-                              add_scalar(hi)))
-            lplan.append(tuple(bplan))
-        plan.append(tuple(lplan))
-
-    n_scalar = len(scalar_inputs)
-    n_tensor = len(tensor_inputs)
-
-    def kernel(*refs):
-        sc = refs[:n_scalar]
-        tn = refs[n_scalar:n_scalar + n_tensor]
-        out_ref = refs[n_scalar + n_tensor]
-        fb = refs[n_scalar + n_tensor + 1]
-        t = pl.program_id(0)
-        gt = t if tile0_pos is None else t + sc[tile0_pos][0]
-        ox = (gt % tiles_x) * TILE_W
-        oy = (gt // tiles_x) * TILE_H
-        py = (jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 0
-                                       ).astype(jnp.float32)
-              + oy.astype(jnp.float32) + 0.5)
-        px = (jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 1
-                                       ).astype(jnp.float32)
-              + ox.astype(jnp.float32) + 0.5)
-        py1 = py[:, 0:1]
-        px1 = px[0:1, :]
-
-        if background is None:
-            # Transparent canvas: the output is a premultiplied RGBA layer
-            # for the compose pipeline (render/compose.py), not a frame.
-            fb[0] = jnp.zeros((TILE_H, TILE_W), jnp.float32)
-            fb[1] = jnp.zeros((TILE_H, TILE_W), jnp.float32)
-            fb[2] = jnp.zeros((TILE_H, TILE_W), jnp.float32)
-            fb[3] = jnp.zeros((TILE_H, TILE_W), jnp.float32)
-        else:
-            fb[0] = jnp.full((TILE_H, TILE_W), background[0], jnp.float32)
-            fb[1] = jnp.full((TILE_H, TILE_W), background[1], jnp.float32)
-            fb[2] = jnp.full((TILE_H, TILE_W), background[2], jnp.float32)
-            fb[3] = jnp.ones((TILE_H, TILE_W), jnp.float32)
-
-        def clip_mask(c0, c1, c2, c3):
-            return ((px >= c0) & (py >= c1) & (px <= c2) & (py <= c3)
-                    ).astype(jnp.float32)
-
-        def composite(r, g, b, cov_a):
-            inv = 1.0 - cov_a
-            fb[0] = r * cov_a + fb[0] * inv
-            fb[1] = g * cov_a + fb[1] * inv
-            fb[2] = b * cov_a + fb[2] * inv
-            fb[3] = cov_a + fb[3] * inv
-
-        def sample_weights_y(origin, extent, atlas_extent):
-            s = (py1 - origin) / jnp.maximum(extent, 1e-6) * atlas_extent \
-                - 0.5
-            j = jax.lax.broadcasted_iota(jnp.int32, (1, CELL), 1
-                                         ).astype(jnp.float32)
-            w = jnp.clip(1.0 - jnp.abs(s - j), 0.0, 1.0)
-            inside = ((s > -1.0) & (s < atlas_extent)).astype(jnp.float32)
-            return w * inside
-
-        def sample_weights_xT(origin, extent, atlas_extent):
-            s = (px1 - origin) / jnp.maximum(extent, 1e-6) * atlas_extent \
-                - 0.5
-            j = jax.lax.broadcasted_iota(jnp.int32, (CELL, 1), 0
-                                         ).astype(jnp.float32)
-            w = jnp.clip(1.0 - jnp.abs(s - j), 0.0, 1.0)
-            inside = ((s > -1.0) & (s < atlas_extent)).astype(jnp.float32)
-            return w * inside
-
-        for lplan in plan:
-            # Z order within a layer is shapes → images → glyphs (scene.py
-            # contract, same as the single-shot kernel); class index 1 is
-            # glyphs, 2 is images.
-            for ci in (0, 2, 1):
-                for tpos, bpos, lpos, hpos in lplan[ci]:
-                    bins = sc[bpos]
-                    lo = jnp.int32(0) if lpos is None else sc[lpos][t]
-                    hi = sc[hpos][t]
-                    if ci == 0:
-                        shapes, sclips = tn[tpos[0]], tn[tpos[1]]
-
-                        def body(k, _, shapes=shapes, sclips=sclips,
-                                 bins=bins):
-                            _shape_step(shapes, sclips, bins[t, k], px, py,
-                                        clip_mask, composite)
-                            return 0
-                    elif ci == 1:
-                        glyphs, gcolors, gclips = (tn[tpos[0]], tn[tpos[1]],
-                                                   tn[tpos[2]])
-
-                        def body(k, _, glyphs=glyphs, gcolors=gcolors,
-                                 gclips=gclips, bins=bins):
-                            _glyph_step(glyphs, gcolors, gclips,
-                                        tn[font_pos], font_cols, bins[t, k],
-                                        px, py, clip_mask, composite,
-                                        sample_weights_y, sample_weights_xT)
-                            return 0
-                    else:
-                        images, iclips = tn[tpos[0]], tn[tpos[1]]
-
-                        def body(k, _, images=images, iclips=iclips,
-                                 bins=bins):
-                            _image_step(images, iclips, tn[img_pos],
-                                        img_cols, bins[t, k], px, py,
-                                        clip_mask, composite,
-                                        sample_weights_y, sample_weights_xT)
-                            return 0
-                    jax.lax.fori_loop(lo, hi, body, 0)
-
-        out_ref[0] = jnp.stack([fb[0], fb[1], fb[2], fb[3]])
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=n_scalar,
-        grid=(T,),
-        in_specs=tensor_specs,
-        out_specs=pl.BlockSpec((1, 4, TILE_H, TILE_W),
-                               lambda t, *_: (t, 0, 0, 0)),
-        scratch_shapes=[pltpu.VMEM((4, TILE_H, TILE_W), jnp.float32)],
-    )
-    return pl.pallas_call(
+    kernel = functools.partial(
+        _kernel, plan=plan, n_in=len(inputs), tiles_x=tiles_x, sub_h=SUB_H,
+        background=background, font_pos=font_pos, img_pos=img_pos,
+        tile0_pos=tile0_pos)
+    plane = pl.BlockSpec((None, SUB_H, TILE_W), lambda t, s: (t, s, 0))
+    planes = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((T, 4, TILE_H, TILE_W), jnp.float32),
+        grid=(T, TILE_H // SUB_H),
+        out_specs=[plane] * 4,
+        out_shape=[jax.ShapeDtypeStruct((T, TILE_H, TILE_W), jnp.float32)]
+        * 4,
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
-    )(*scalar_inputs, *tensor_inputs)
-
-
-def assemble_planar(tiles_f32, tiles_y: int, tiles_x: int,
-                    height: int, width: int):
-    """(T, 4, TH, TW) f32 → (H, W, 4) u8 (device-side epilogue)."""
-    img = assemble_f32(tiles_f32, tiles_y, tiles_x, height, width)
-    return jnp.clip(img * 255.0 + 0.5, 0.0, 255.0).astype(jnp.uint8)
-
-
-def assemble_u8(tiles_u8, tiles_y: int, tiles_x: int,
-                height: int, width: int):
-    """(T, 4, TH, TW) u8 planar tiles → (H, W, 4) u8 — pure layout
-    transpose for kernels that quantize in-kernel (pallas_compose)."""
-    img = tiles_u8.reshape(tiles_y, tiles_x, 4, TILE_H, TILE_W)
-    img = img.transpose(0, 3, 1, 4, 2).reshape(tiles_y * TILE_H,
-                                               tiles_x * TILE_W, 4)
-    return img[:height, :width]
-
-
-def assemble_f32(tiles_f32, tiles_y: int, tiles_x: int,
-                 height: int, width: int):
-    """(T, 4, TH, TW) f32 → (H, W, 4) f32 — the un-quantized variant for
-    cached compose layers (render/compose.py)."""
-    img = tiles_f32.reshape(tiles_y, tiles_x, 4, TILE_H, TILE_W)
-    img = img.transpose(0, 3, 1, 4, 2).reshape(tiles_y * TILE_H,
-                                               tiles_x * TILE_W, 4)
-    return img[:height, :width]
+        name="wgit_raster_tiles",
+    )(*inputs)
+    return jnp.stack(planes, axis=1)

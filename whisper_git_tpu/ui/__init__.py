@@ -1,7 +1,8 @@
 """Retained-mode UI toolkit (L1) — the rebuild's equivalent of the
 reference's external `aetna-core` crate: a declarative El tree, a flex
 layout pass, theme tokens, lints over the laid-out tree, SVG/text golden
-dumps, and a Runner that hit-tests and paints through the TPU rasterizer.
+dumps, and a Runner that hit-tests and paints through the device
+rasterizer.
 """
 
 from .el import (El, column, row, stack, rect, text, spacer, image,

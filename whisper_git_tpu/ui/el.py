@@ -2,8 +2,8 @@
 
 The rebuild's equivalent of aetna's `El` (the reference's views are pure
 `fn(&state) -> El` composers; ours are pure `def view(state) -> El`). The
-tree is rebuilt every frame, laid out by `ui.layout`, painted by the TPU
-rasterizer, and hit-tested by the Runner for string-routed actions
+tree is rebuilt every frame, laid out by `ui.layout`, painted by the
+device rasterizer, and hit-tested by the Runner for string-routed actions
 (reference: string-keyed action routing, ui_app.rs:1004).
 """
 
